@@ -12,14 +12,21 @@ DOCKER_IMAGE = $(DOCKER_REGISTRY)/$(IMAGE_NAME)
 OS := $(shell uname -s)
 ARCH := $(shell uname -m)
 
-.PHONY: test test-fast bench serve serve-fake native sanitize proto clean \
-        docker-build docker-build-cpu docker-push docker-push-cpu up up-cpu info
+.PHONY: test test-fast test-gpu smoke bench serve serve-fake native sanitize \
+        proto clean docker-build docker-build-cpu docker-push docker-push-cpu \
+        up up-cpu info
 
-test:
+test:  # 8 virtual CPU devices (tests/conftest.py); gpu-marked tests skip
 	$(PY) -m pytest tests/ -q
 
 test-fast:
 	$(PY) -m pytest tests/ -q -x -m "not slow"
+
+test-gpu:  # on a machine with an NVIDIA GPU
+	JAX_PLATFORMS=cuda $(PY) -m pytest tests/ -q -m gpu
+
+smoke:  # the serving path at full large-v3 width on one GPU (needs a GPU)
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py
@@ -45,7 +52,7 @@ clean:
 
 # --- images (reference Makefile build/push equivalents) ---
 
-docker-build:  # TPU serving image (reference: dockerfile.cuda two-stage build)
+docker-build:  # CUDA serving image (reference: dockerfile.cuda)
 	docker build -f Dockerfile -t $(DOCKER_IMAGE):$(VERSION) -t $(DOCKER_IMAGE):latest .
 
 docker-build-cpu:  # CPU/off-accelerator image (reference: dockerfile.cpu)
@@ -59,10 +66,10 @@ docker-push-cpu: docker-build-cpu
 	docker push $(DOCKER_IMAGE)-cpu:$(VERSION)
 	docker push $(DOCKER_IMAGE)-cpu:latest
 
-up:  # TPU compose stack (asr + etcd)
+up:  # GPU compose stack (asr + etcd)
 	docker compose up --build
 
-up-cpu:  # off-TPU smoke stack: fake engine, answers /health with no model
+up-cpu:  # CPU smoke stack: fake engine, answers /health with no model
 	docker compose -f docker-compose.cpu.yml up --build
 
 info:

@@ -1,7 +1,7 @@
-"""speaksense_tpu — a TPU-native ASR (Whisper) serving framework.
+"""speaksense_tpu — a JAX ASR (Whisper) serving framework for accelerators.
 
 A from-scratch rebuild of the capabilities of bean-du/SpeakSense (a Rust
-whisper.cpp gRPC/REST server) designed TPU-first:
+whisper.cpp gRPC/REST server) designed around a device-resident engine:
 
 - the neural inference engine (reference: whisper.cpp behind `whisper-rs`,
   /root/reference/src/asr/whisper.rs) is a JAX/XLA/Pallas Whisper

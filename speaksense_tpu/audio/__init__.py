@@ -1,5 +1,5 @@
 """Audio frontend: ingestion, resampling, DSP (denoise/VAD/quality), and the
-log-mel feature extractor feeding the TPU encoder.
+log-mel feature extractor feeding the on-device encoder.
 
 Rebuild of /root/reference/src/audio/mod.rs (1,056 LoC of Rust DSP): the
 host-side pieces (file parsing, ffmpeg shim, resample, denoise, VAD, quality

@@ -13,7 +13,7 @@ Implementation is frame-matrix numpy (sliding_window_view + one batched FFT)
 rather than the reference's per-frame rayon loop — the whole 2048-frame
 pipeline is a handful of BLAS/FFT calls. This stage stays host-side on
 purpose: it runs per ~5 s chunk (tens of microseconds), while the mel+model
-path owns the TPU.
+path owns the accelerator.
 """
 
 from __future__ import annotations
@@ -233,9 +233,9 @@ def denoise_audio(x: np.ndarray, config: DenoiseConfig | None = None) -> np.ndar
 # ---------------------------------------------------------------------------
 # JAX (on-device) denoise — jit-composable mirror of denoise_audio
 # ---------------------------------------------------------------------------
-# Rationale: BENCH_MODE=serve measured host-side denoise at ~1/3 of serving
-# throughput (38.9x -> 57.5x realtime with it off, 64 streams); the FFT work
-# is trivial next to the encoder, so the TPU runs it inside the admission
+# Rationale: host-side denoise cost about a third of serving throughput at
+# 64 streams in an earlier measurement; the FFT work is trivial next to the
+# encoder, so the device runs it inside the admission
 # program (audio -> denoise -> log-mel -> encode in ONE dispatch). Semantics
 # mirror the numpy path (same classifier/gains/OLA, f32/complex64); all
 # branches are computed and the per-input branch is selected with
@@ -306,9 +306,8 @@ def _denoise_jax_single(x, frame_size: int, overlap: float, strength: float,
         return overlap_add(td)
 
     # branch pinned statically (host-side classifier, see classify_noise):
-    # the program computes ONE denoise path instead of all three — the
-    # all-branches form measured ~10x-realtime of serving throughput at 64
-    # streams (48.7x vs 58.2x denoise-off)
+    # the program computes ONE denoise path instead of all three, which
+    # cost serving throughput in an earlier measurement
     if branch == "spectral":
         return spectral(x)
     if branch == "wiener":

@@ -1,14 +1,12 @@
-"""Log-mel spectrogram, formulated for TPU.
+"""Log-mel spectrogram, formulated for the accelerator.
 
 Replaces the mel frontend of whisper.cpp (the reference consumes it via
 `state.full` — /root/reference/src/asr/whisper.rs:75 — and whisper.cpp computes
 the mel internally on CPU threads). Here the STFT is expressed as
 frame-gather + two matmuls (window ⊙ frames) @ [cos|sin] DFT basis so XLA maps
-it onto the MXU; the mel projection and log/clamp fuse behind it. A dedicated
-XLA fuses the chain (framed matmul-STFT + filterbank matmul are MXU-native);
-a hand-written Pallas mel kernel was tried and removed — it never beat the
-fused XLA path at any production shape (PERF.md "Levers measured and
-rejected").
+it onto matrix products; the mel projection and log/clamp fuse behind it.
+A hand-written Pallas mel kernel was tried and removed — it never beat the
+fused XLA path at any production shape.
 
 Conventions (identical to openai/whisper & whisper.cpp):
   sample rate 16 kHz, n_fft 400, hop 160, periodic Hann window, reflect
@@ -107,9 +105,9 @@ def _log_mel_jit(audio: jax.Array, filters: jax.Array, n_mels: int, num_frames: 
     frames = x[:, idx]  # (B, num_frames, n_fft) — gather; XLA fuses this
     cos_b, sin_b = _dft_basis()
     cos_b, sin_b = jnp.asarray(cos_b), jnp.asarray(sin_b)
-    # HIGHEST precision: on TPU, f32 matmuls otherwise round through bf16 on
-    # the MXU; the log10 feature domain needs true f32 (these matmuls are a
-    # negligible fraction of total FLOPs).
+    # HIGHEST precision: f32 matmuls otherwise may run in TF32 (GPU) or
+    # bf16 passes; the log10 feature domain needs true f32 (these matmuls
+    # are a negligible fraction of total FLOPs).
     hi = jax.lax.Precision.HIGHEST
     re = jnp.einsum("btf,fk->btk", frames, cos_b, precision=hi, preferred_element_type=jnp.float32)
     im = jnp.einsum("btf,fk->btk", frames, sin_b, precision=hi, preferred_element_type=jnp.float32)

@@ -7,7 +7,7 @@ Behavior mirror of /root/reference/src/audio/mod.rs:
   (0.95/0.05 EMA) with soft gain floor 0.1.
 
 Plus `speech_segments`, a segmenter used by the long-form batch pipeline to
-feed only voiced spans to the TPU (the reference has no segment-level VAD;
+feed only voiced spans to the model (the reference has no segment-level VAD;
 this is the 'VAD-driven segmentation' item from SURVEY.md §7 step 9).
 """
 

@@ -29,7 +29,7 @@ envelopes).
 Host-side numpy by design: a whole minute of audio is ~6k frames x 128
 bins — microseconds of vectorized host math. Running it on the host keeps
 batch-task workers from contending with the serving engine for device
-dispatch (the TPU's job is the transformer, PERF.md).
+dispatch (the device's job is the transformer).
 """
 
 from __future__ import annotations

@@ -79,16 +79,15 @@ class EngineConfig:
     stream_slots: int = 64          # continuous-batching decode slots
     # numerics
     compute_dtype: str = "bfloat16"
-    cross_kv_int8: bool = False     # int8 cross-attention KV (2x less decode HBM traffic)
+    cross_kv_int8: bool = False     # int8 cross-attention KV (2x less decode KV traffic)
     # int8 SELF-attention KV pages for full-window decodes, quantized at
-    # ring-flush time (measured +2.9% at the B=64 large-v3 headline shape;
-    # drift bounds: tests/test_accuracy.py). Applied only when the window's
-    # token budget spans more than one 128-lane page — at t_text=128 the
-    # flush-quantize cost offsets the page-read saving (measured wash).
+    # ring-flush time (drift bounds: tests/test_accuracy.py). Applied only
+    # when the window's token budget spans more than one 128-column page —
+    # at t_text=128 the flush-quantize cost offsets the page-read saving.
     # Beam slot pools default int8 pages independently (enable_slot_serving).
     self_kv_int8: bool = False
     weights_int8: bool = False      # int8 decoder block weights (per-out-channel
-    # scales; +4.7% ring decode). Opt-in until the executable promotion gate
+    # scales). Opt-in until the executable promotion gate
     # passes on real speech: tools/wer_check.py --compare-int8-weights, which
     # promotes iff corpus WER regresses <= 0.1 pts and no file by > 1.0 pts
     # (hermetic drift proxies: tests/test_accuracy.py)
@@ -116,9 +115,9 @@ class Config:
     # "optional" (verify+meter `authorization` metadata when present),
     # "required" (reject keyless streams)
     grpc_auth: str = "off"
-    # multi-chip serving: tp shards the model over ICI (Megatron layout),
-    # dp spans the remaining local chips (0 = auto: local_devices // tp).
-    # tp=1 on one chip builds no mesh (single-chip programs unchanged).
+    # multi-device serving: tp shards the model over local devices
+    # (Megatron layout), dp spans the remaining ones (0 = auto:
+    # local_devices // tp). tp=1 on one device builds no mesh.
     tp: int = 1
     dp: int = 0
     engine: EngineConfig = field(default_factory=EngineConfig)

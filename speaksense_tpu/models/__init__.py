@@ -2,8 +2,8 @@
 
 Replaces the reference's L0 native inference engine (whisper.cpp behind the
 whisper-rs FFI — SURVEY.md §1 L0, /root/reference/src/asr/whisper.rs) with a
-TPU-first implementation: stacked-layer `lax.scan` transformer blocks, bf16
-MXU matmuls with f32 normalization/softmax, per-slot KV caches shaped for
+JAX implementation: stacked-layer `lax.scan` transformer blocks, bf16
+matmuls with f32 normalization/softmax, per-slot KV caches shaped for
 continuous batching, and sharding-annotatable parameter pytrees.
 """
 

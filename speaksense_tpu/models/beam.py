@@ -2,7 +2,7 @@
 SamplingStrategy and the BASELINE config 4 target; whisper.cpp's beam decoder
 is configured at /root/reference/src/asr/whisper.rs:132 via best_of/beam).
 
-TPU-first design (2026-08-16 rework — no physical KV movement at all):
+Design (no physical KV movement at all):
 - one jitted chunked `lax.while_loop` decodes ALL batch rows x beams together;
 - cross-attention K/V is stored once per batch row and beams index it via
   einsum — NOT replicated per beam (for large-v3 at B=8, K=5 a replicated
@@ -11,14 +11,15 @@ TPU-first design (2026-08-16 rework — no physical KV movement at all):
   column (uniform fill layout), and an ANCESTOR TABLE anc (B, K, T) records
   which row produced the KV each hypothesis needs at each column. Attention
   computes logits against ALL K rows of the batch entry (the extra K'
-  factor is ~1 GFLOP — free on the MXU) and contracts with one-hot(anc),
-  replacing the previous per-step physical gather of the whole
-  (L, B*K, H, Dh, T) cache (~3.4 GB/step of HBM traffic at B=8, K=5).
+  factor is ~1 GFLOP — cheap on the matrix units) and contracts with
+  one-hot(anc), replacing a per-step physical gather of the whole
+  (L, B*K, H, Dh, T) cache (~3.4 GB/step of device-memory traffic at B=8,
+  K=5).
   The prompt region needs no ancestry: prefill replicates rows K-fold, so
   every row holds identical prompt KV and any ancestor is correct.
 - writes are RING-buffered like greedy decode (whisper.init_ring): ANY
   direct per-step write to the big cache costs a whole-cache copy
-  (PERF.md); the ring bounds it to W columns and the flush amortizes the
+  (see whisper.init_ring); the ring bounds it to W columns and the flush amortizes the
   big copy W-fold. The ancestor table has a matching ring (anc_ring).
 - finished hypotheses are frozen: their only continuation is EOT at zero
   added logprob, so the joint top-k stays well-defined under jit.

@@ -4,7 +4,7 @@ Replaces whisper.cpp's sampling loop (the reference configures it via
 FullParams — greedy best_of=5, temperature 0, entropy/logprob/no-speech
 thresholds, timestamp token probabilities — /root/reference/src/asr/whisper.rs:131-173).
 
-TPU-first formulation: the whole loop is one `lax.while_loop` inside jit —
+Device-resident formulation: the whole loop is one `lax.while_loop` inside jit —
 every step samples for ALL batch slots (finished slots freeze on EOT), all
 logit rules are vectorized mask arithmetic, and there is no host round-trip
 until the window finishes. The rule set mirrors openai/whisper's logit
@@ -137,7 +137,7 @@ def decode_loop(params, dims: W.WhisperDims, cfg: RuleConfig, suppress_mask: jax
     kv_write="ring" (requires an arm_uniform_fill'd cache) decodes in chunks
     of ring_width steps: self-KV writes go to a small ring and fold into the
     big cache once per chunk — ANY per-step write to the big cache costs a
-    full cache copy (~10 ms at B=32 large-v3, PERF.md). Early exit then
+    full cache copy (see whisper.init_ring). Early exit then
     happens at chunk granularity (finished slots just idle frozen).
     """
     B = first_logits.shape[0]
@@ -247,12 +247,12 @@ def transcribe_window(params, dims: W.WhisperDims, cfg: RuleConfig, suppress_mas
     if self_kv_int8 and kv_write == "uniform":
         # plain uniform-DUS writes into int8 pages would need a per-step
         # quantize (the write-time path that measured speed-neutral); only
-        # "ring" (flush-time quantization, the r4 lever) and "dus" support
+        # "ring" (flush-time quantization) and "dus" support
         # int8 pages
         kv_write = "dus"
     enc = W.encode(params, dims, mel, n_ctx_out=n_audio_ctx)
     # Cap the self-KV time axis at the window's actual token budget (prompt +
-    # max_new, 128-lane aligned): every decode step reads the FULL static T
+    # max_new, rounded up to 128): every decode step reads the FULL static T
     # axis, so a 448-position cache spends ~43% of its self-KV bandwidth on
     # positions this window can never write (prompt 3 + 224 new -> 256).
     t_cap = min(dims.n_text_ctx, -(-(P + cfg.max_new_tokens) // 128) * 128)
@@ -264,9 +264,10 @@ def transcribe_window(params, dims: W.WhisperDims, cfg: RuleConfig, suppress_mas
                          dtype=params["decoder"]["tok_emb"].dtype,
                          self_kv_int8=self_kv_int8, t_text=t_cap)
     if cross_kv_int8:
-        # per-channel int8 cross-KV: halves the dominant decode-time HBM
-        # traffic (PERF.md); scales fold exactly into q / output. Quantized
-        # inside the per-layer map — no bf16 HBM round trip.
+        # per-channel int8 cross-KV: halves the dominant decode-time
+        # device-memory traffic; scales fold exactly into q / output.
+        # Quantized inside the per-layer map — no bf16 round trip through
+        # device memory.
         kq, vq, ks, vs = W.compute_cross_kv(params, dims, enc, int8=True)
         cache = {**cache, "cross_k": kq, "cross_v": vq,
                  "cross_k_scale": ks, "cross_v_scale": vs}
@@ -275,10 +276,10 @@ def transcribe_window(params, dims: W.WhisperDims, cfg: RuleConfig, suppress_mas
         cache = {**cache, "cross_k": ck, "cross_v": cv}
 
     # NOTE: uniform_pos (batchwide-DUS KV writes) stays OFF here even though
-    # window batches qualify: on TPU, XLA's layout assignment reacts to the
-    # batchwide time-offset DUS by flipping the self-KV cache to a Dh-minor
-    # layout (2x padding) and double-buffering it — +2.2 GB HBM and an OOM at
-    # the B=32 large-v3 config (PERF.md "uniform-pos experiment").
+    # window batches qualify: XLA's layout assignment was seen to react to
+    # the batchwide time-offset DUS by flipping the self-KV cache to a
+    # Dh-minor layout and double-buffering it, which ran the B=32 large-v3
+    # window batch out of device memory. Not yet re-measured on the GPU.
     uniform = False
     prefill_logits, cache = W.decode_prefill(params, dims, prompt, cache,
                                              prompt_len=prompt_len,

@@ -1,11 +1,10 @@
-"""Multi-chip parallelism: device meshes and sharding rules.
+"""Multi-device parallelism: device meshes and sharding rules.
 
 The reference is a single-process single-replica server with no distributed
-compute (SURVEY.md §2 'Parallelism & distribution'); its scaling story is the
-one this package supplies the TPU way: a (dp, tp) `jax.sharding.Mesh`,
-NamedSharding-annotated parameter/cache pytrees, and XLA-inserted collectives
-over ICI (tensor-parallel attention/MLP) with data parallelism across
-windows/streams.
+compute (SURVEY.md §2 'Parallelism & distribution'); this package supplies
+the scaling story: a (dp, tp) `jax.sharding.Mesh`, NamedSharding-annotated
+parameter/cache pytrees, and XLA-inserted collectives (tensor-parallel
+attention/MLP) with data parallelism across windows/streams.
 """
 
 from speaksense_tpu.parallel.mesh import (  # noqa: F401

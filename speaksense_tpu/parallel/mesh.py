@@ -10,9 +10,9 @@ Layout (Megatron-style tensor parallel over the `tp` axis, data parallel over
 - activations and KV caches: batch on dp, heads on tp.
 
 With params and inputs annotated, `jit` propagates shardings through the
-stacked-layer scan and places all collectives on ICI — no hand-written
-NCCL-style code (contrast: the reference has none of this at all; whisper.cpp
-is single-device).
+stacked-layer scan and inserts every collective (NCCL on GPUs) — no
+hand-written communication code (contrast: the reference has none of this
+at all; whisper.cpp is single-device).
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
-"""Multi-host serving over DCN (SURVEY.md §5 'distributed communication
-backend': the reference's only cross-node awareness is etcd registration;
-its compute is single-process. Here each HOST runs one server process and
-registers itself in etcd — clients load-balance across hosts (go-micro
-style) — while JAX's distributed runtime links the hosts' TPU slices into
-one global device set for intra-slice sharding).
+"""Multi-host serving over the data-center network (SURVEY.md §5
+'distributed communication backend': the reference's only cross-node
+awareness is etcd registration; its compute is single-process. Here each
+HOST runs one server process and registers itself in etcd — clients
+load-balance across hosts (go-micro style) — while JAX's distributed runtime
+links the hosts' devices into one global device set).
 
 Topology stance (scaling-book recipe): data parallel ACROSS hosts — every
-window/stream is independent, so requests never cross DCN — and tensor
-parallel only WITHIN a host's ICI-connected slice (make_mesh's tp axis).
+window/stream is independent, so requests never cross the host network —
+and tensor parallel only WITHIN a host's directly linked devices (make_mesh's
+tp axis).
 There is nothing like pipeline/sequence parallelism to place: whisper's
 sequence length is capped at 1500 encoder frames (SURVEY.md §5
 'long-context').
@@ -55,7 +56,7 @@ def local_serving_mesh(tp: int = 1):
 
     Serving is data-parallel across hosts (each host owns its own request
     stream), so the mesh spans local devices only; tp shards the model over
-    the host's ICI-connected chips. Use parallel.make_mesh directly for a
+    the host's directly linked devices. Use parallel.make_mesh directly for a
     global mesh (e.g. training-style SPMD over all hosts).
     """
     import jax

@@ -1,4 +1,4 @@
-"""Serving runtime: cross-request batching for the TPU engine.
+"""Serving runtime: cross-request batching for the device engine.
 
 This is the structural win over the reference, which pins one whisper.cpp
 state per gRPC stream and serializes every stream on its own mutex

@@ -14,8 +14,7 @@ src/grpc/handlers/asr.rs:164-169) with a shared batch loop:
 Window-level batching is the right granularity for whisper serving: decode
 lengths are short (tens of tokens per 5-30 s window) and every window
 recomputes cross-KV anyway; token-level admission would add host-device
-sync per step for marginal gain. Throughput scales with batch occupancy —
-see bench.py / PERF.md (119x realtime on large-v3 at B=32, int8 cross-KV).
+sync per step for marginal gain. Throughput scales with batch occupancy.
 
 BatchedEngine implements the AsrEngine interface, so it drops into the gRPC
 handler, the task processors, and the REST stack unchanged.
@@ -78,7 +77,7 @@ class BatchedEngine(AsrEngine):
                       temperature: float = 0.0) -> Future:
         """mel: (T_mel, n_mels), numpy OR device array — device arrays are
         kept on device (compute_mel output would otherwise round-trip
-        through the host, ~1.5 MB each way per 30 s window on the relay)."""
+        through the host, ~1.5 MB each way per 30 s window)."""
         job = _WindowJob(mel, language, task, suppress_non_speech, context,
                          speaker_diarization, temperature)
         self._queue.put(job)

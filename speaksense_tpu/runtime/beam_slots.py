@@ -1,8 +1,8 @@
 """Beam-search slot pool: token-level continuous batching at beam width K.
 
 BASELINE config 4 reads "64 concurrent streams, paged KV cache, beam=5";
-round 2 served beam only through the window batcher (11-16x — below the 30x
-north star) because the slot pool was greedy-only. This pool extends the
+the window batcher's beam cannot admit or retire streams at token
+granularity. This pool extends the
 circular-page design (runtime/slots.py) with a beam axis, reusing the
 ancestor-indirection idea from models/beam.py so beam reordering NEVER moves
 KV bytes:
@@ -43,11 +43,11 @@ class BeamSlotPool(SlotPool):
 
     def __init__(self, engine, n_slots: int, t_mel: int, max_new: int,
                  beam_size: int = 5, **kw):
-        # self_int8: int8 SELF-KV beam pages (r4). The beam step's page
+        # self_int8: int8 SELF-KV beam pages. The beam step's page
         # reads DOMINATE its bytes (every hypothesis contracts against all
         # K rows' pages: ~4.3 GB/step at S=32 K=5 large-v3 vs ~1.7 GB of
-        # weights), so int8 pages are both a speed lever and the capacity
-        # lever for >32 beam slots (40 bf16 beam slots OOM — PERF.md r4).
+        # weights), so int8 pages are both a speed lever and a capacity
+        # lever (they halve the pages' device memory).
         # Ring rows stay bf16; the flush quantizes (same design as the
         # greedy pool).
         self.K = int(beam_size)

@@ -5,7 +5,7 @@ interface (mod.rs:10-16) and TranscribeProcessor (transcribe.rs), which
 downloads/locates the input, runs the audio pipeline + ASR engine, and
 returns a TranscribeTaskResult.
 
-TPU-first difference: the reference pipes 30 s buffers one-at-a-time through
+Batching difference: the reference pipes 30 s buffers one-at-a-time through
 a mutex'd whisper state (transcribe.rs:102-142); ours hands the whole audio
 to WhisperEngine.transcribe_audio, which windows with timestamp-seek and can
 batch windows of many tasks through one compiled program.
@@ -55,7 +55,7 @@ class TranscribeProcessor(TaskProcessor):
         self.engine = engine
         self.audio_dir = audio_dir
         self.denoise = denoise
-        # VAD-driven segmentation: only voiced spans reach the TPU
+        # VAD-driven segmentation: only voiced spans reach the model
         self.vad_segmentation = vad_segmentation
 
     @property

@@ -8,7 +8,7 @@ unchanged.
 
 Differences by design:
 - handlers are async-generator based (grpc.aio), engine work runs in a worker
-  thread pool so many streams multiplex the TPU engine;
+  thread pool so many streams multiplex the device engine;
 - etcd being down does NOT prevent startup (the reference hard-fails,
   src/main.rs:79 — SURVEY.md §7 step 7 calls for tolerating absence).
 """
@@ -98,7 +98,7 @@ class AsrService:
         # (StreamSession.ingest), while this generator settles results in
         # order and streams the responses. A backlogged stream thereby
         # keeps up to max_inflight chunks decoding concurrently in the slot
-        # pool instead of idling a slot for one host round trip per chunk;
+        # pool instead of idling a slot for the host turnaround per chunk;
         # engines without nonblocking submission decode inline during
         # ingest, preserving the old sequential behavior exactly.
         loop = asyncio.get_running_loop()

@@ -326,8 +326,8 @@ class StreamSession:
         """Shared denoise/params dispatch for chunk and tail-flush
         submission. device_denoise engines take the raw s16 PCM plus
         AsrParams.denoise=True (the DSP chain runs on device inside the
-        slot-admission program — host denoise measured ~1/3 of serving
-        throughput at 64 streams, PERF.md); otherwise the host numpy chain
+        slot-admission program, off the serving host's CPU); otherwise the
+        host numpy chain
         runs here. Returns (submit_audio, params, host_f32) where host_f32
         is the host-denoised f32 audio (None when the wire stays s16)."""
         params = self.params
@@ -350,7 +350,7 @@ class StreamSession:
         nonblocking path (then the \"pending\" is just the result)."""
         # WIRE-DTYPE submission: keep the PCM as s16 until it reaches the
         # engine — the slot pool uploads it as-is (HALF the host->device
-        # relay bytes of f32) and the admission program dequantizes on
+        # bytes of f32) and the admission program dequantizes on
         # device. f32 conversion happens lazily, only on paths that need
         # host-side DSP or the sequential engine call.
         n = len(chunk) // 2 * 2

@@ -1,33 +1,35 @@
 """JAX runtime setup: persistent compilation cache.
 
-First-compile latency dominates cold starts (remote-compile TPU environments
-can take minutes per program); the persistent cache makes every later process
-reuse compiled artifacts. Call early in every entry point.
+A cold process compiles every program it runs; the persistent cache lets a
+later process reuse them. Where `JAX_COMPILATION_CACHE_DIR` is set, JAX
+reads it itself and no other directory is set here. Otherwise the cache
+lives at a fixed, git-ignored path inside the checkout: the path is part of
+the cache's key, so a directory that moves never hits. Call early in every
+entry point.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from pathlib import Path
 
 log = logging.getLogger(__name__)
+
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 _done = False
 
 
-def init_compilation_cache(cache_dir: str | None = None) -> None:
+def init_compilation_cache() -> None:
     global _done
     if _done:
         return
     _done = True
-    cache_dir = (cache_dir or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                 or os.path.expanduser("~/.cache/speaksense_jax"))
-    try:
-        import jax
+    import jax
 
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        log.debug("jax compilation cache at %s", cache_dir)
-    except Exception as e:  # pragma: no cover
-        log.warning("compilation cache unavailable: %s", e)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(DEFAULT_CACHE_DIR))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    log.debug("jax compilation cache at %s", jax.config.jax_compilation_cache_dir)

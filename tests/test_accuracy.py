@@ -12,9 +12,9 @@ suite pins what CAN be pinned hermetically:
 2. bf16-vs-f32 logit drift at REALISTIC width (d=1280, 20 heads — the
    large-v3 shape, 2 layers): the production dtype's drift is bounded
    against the f32 reference.
-3. int8 decoder-weight drift (the +4.7% bench lever): quantization error is
+3. int8 decoder-weight drift (a decode-speed lever): quantization error is
    quantified against the same reference so the default-off decision is
-   data-backed (see PERF.md).
+   data-backed.
 """
 
 import json
@@ -151,7 +151,7 @@ def test_int8_weight_drift_quantified(rng):
     max_rel = float(np.abs(int8 - ref).max()) / scale
     # int8 per-out-channel is coarser than bf16 but must stay well inside
     # the decision margin at realistic width; this measured bound is the
-    # data behind keeping weights_int8 opt-in (PERF.md: +4.7% speed)
+    # data behind keeping weights_int8 opt-in
     assert max_rel < 0.5, f"int8 weight drift {max_rel:.4f} of logit std"
     top_ref = set(np.argsort(ref)[-5:].tolist())
     top_q = set(np.argsort(int8)[-5:].tolist())

@@ -446,7 +446,7 @@ def test_uniform_fill_matches_dus(tiny_model, rng):
 
 def test_fused_int8_cross_kv_matches_two_pass(tiny_model, rng):
     """compute_cross_kv(int8=True) (quantize inside the per-layer map, no
-    bf16 HBM round trip) must equal quantize_cross_kv over the two-pass
+    bf16 device-memory round trip) must equal quantize_cross_kv over the two-pass
     result exactly (same math, same order)."""
     params, dims = tiny_model
     mel = jnp.asarray(rng.standard_normal((2, 3000, dims.n_mels)), jnp.float32)

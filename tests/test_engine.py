@@ -239,9 +239,8 @@ def test_engine_int8_weights_init_idempotent():
 
 def test_self_kv_int8_window_gating(rng, monkeypatch):
     """EngineConfig.self_kv_int8 (--int8-self-kv) plumbs into the window
-    program ONLY when the token budget spans more than one 128-lane page:
-    at t_text=128 the flush-quantize cost offsets the page-read saving
-    (measured wash — PERF.md round-4), at t_cap>=256 it measured +2.9%."""
+    program ONLY when the token budget spans more than one 128-column page:
+    at t_text=128 the flush-quantize cost offsets the page-read saving."""
     import jax
 
     import speaksense_tpu.models.decode as D_mod

@@ -1,9 +1,9 @@
 """WER harness: the executable promotion gate for quantized serving configs.
 
-BASELINE.json's north star is ">30x real-time ... WER parity"; PERF.md keeps
-int8 decoder weights (EngineConfig.weights_int8 / --int8-weights, +4.7%
-measured) OPT-IN "pending WER validation" because this image ships no real
-checkpoints or speech corpora (zero egress). This tool makes that pending
+BASELINE.json's north star is ">30x real-time ... WER parity"; int8 decoder
+weights (EngineConfig.weights_int8 / --int8-weights) stay OPT-IN "pending
+WER validation" because the repository ships no real checkpoints or speech
+corpora. This tool makes that pending
 decision rule runnable the moment both exist:
 
     python tools/wer_check.py --model /path/ggml-large-v3.bin \
